@@ -1,10 +1,10 @@
 // Native runtime: exact Euclidean distance transform (Felzenszwalb &
 // Huttenlocher 2004, O(n) per scanline) for the per-map likelihood-field
 // precompute.  This replaces the host-side scipy.ndimage call the reference
-// makes once per map (amcmh_localizer.py:156); the TPU compute path never
-// touches it (maps/edt.py has the on-device variant).
+// makes once per map (amcmh_localizer.py:156); the accelerator compute path
+// never touches it (maps/edt.py has the on-device variant).
 //
-// C ABI, bound from python via ctypes (mcmh_localization_tpu/native).
+// C ABI, bound from python via ctypes (mcmh_localization/native).
 
 #include <cmath>
 #include <cstdint>

@@ -13,8 +13,9 @@ import time
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import jax
 
-jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
+from mcmh_localization.utils.compile_cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 import numpy as np
 
 
@@ -25,16 +26,16 @@ def main():
     win = int(sys.argv[4]) if len(sys.argv) > 4 else 128
     tw = int(sys.argv[5]) if len(sys.argv) > 5 else 32
 
-    from mcmh_localization_tpu.config import FilterConfig
-    from mcmh_localization_tpu.filter.step import make_model
-    from mcmh_localization_tpu.maps import load_map
-    from mcmh_localization_tpu.sim.simulator import simulate_bag
-    from mcmh_localization_tpu.sim.trajectory import (
+    from mcmh_localization.config import FilterConfig
+    from mcmh_localization.filter.step import make_model
+    from mcmh_localization.maps.house import make_house_map
+    from mcmh_localization.sim.simulator import simulate_bag
+    from mcmh_localization.sim.trajectory import (
         fit_trajectory_to_map,
         square_trajectory,
     )
 
-    grid_map = load_map("/root/reference/app/maps/map_house.yaml")
+    grid_map = make_house_map()
     gt = square_trajectory(duration=duration, rate=5.0, side=4.0, speed=0.3)
     gt = fit_trajectory_to_map(grid_map, gt, min_clearance=0.18)
     bag = simulate_bag(
@@ -50,7 +51,7 @@ def main():
         estimate_mode="cluster",
         motion_validity="score", min_injection_prob=0.02,
     )
-    from mcmh_localization_tpu.sim.simulator import odometry_deltas
+    from mcmh_localization.sim.simulator import odometry_deltas
 
     model = make_model(cfg, grid_map)
     state = model.init(jax.random.PRNGKey(seed + 100))

@@ -21,8 +21,9 @@ import sys
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import jax
 
-jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
+from mcmh_localization.utils.compile_cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 import numpy as np
 
 
@@ -30,25 +31,25 @@ def main():
     theta = int(sys.argv[1]) if len(sys.argv) > 1 else None
     window = int(sys.argv[2]) if len(sys.argv) > 2 else None
 
-    from mcmh_localization_tpu.config import FilterConfig
-    from mcmh_localization_tpu.eval.evaluator import evaluate_run
-    from mcmh_localization_tpu.eval.runner import run_filter_on_bag
-    from mcmh_localization_tpu.filter.staged import (
+    from mcmh_localization.config import FilterConfig
+    from mcmh_localization.eval.evaluator import evaluate_run
+    from mcmh_localization.eval.runner import run_filter_on_bag
+    from mcmh_localization.filter.staged import (
         make_staged_model,
         run_staged,
         warmup_staged,
     )
-    from mcmh_localization_tpu.maps import load_map
-    from mcmh_localization_tpu.sim.simulator import (
+    from mcmh_localization.maps.house import make_house_map
+    from mcmh_localization.sim.simulator import (
         odometry_deltas,
         simulate_bag,
     )
-    from mcmh_localization_tpu.sim.trajectory import (
+    from mcmh_localization.sim.trajectory import (
         SCENARIOS,
         fit_trajectory_to_map,
     )
 
-    grid_map = load_map("/root/reference/app/maps/map_house.yaml")
+    grid_map = make_house_map()
     seeds = (0, 1, 2)
     out = {}
     for scenario in ("static", "straight_line_spin", "square", "L_rest"):

@@ -1,5 +1,5 @@
-"""Global (uninitialized) localization AT SCALE on the reference map:
-1M-particle AMHAMCL, uniform init over map_house free space, judged on
+"""Global (uninitialized) localization AT SCALE on a house-scale map:
+1M-particle AMHAMCL, uniform init over the house's free space, judged on
 the published CLUSTER estimate (round-2 verdict #9 made measurable).
 
 The reference's own estimate is the weighted mean over a (long-)multimodal
@@ -20,10 +20,9 @@ small-capacity tracking program once one mode dominates, escalating back
 on injection / dominance decay.
 
 Usage: python scripts/global_loc_1m.py [n_particles] [duration_s] [seed] [win]
-                                        [map_name] [tracking_theta] [tracking_ess]
+                                        [map_seed] [tracking_theta] [tracking_ess]
                                         [tracking_win]
-``map_name`` (default map_house) picks any reference map under
-/root/reference/app/maps — map_world is the second validation scenario.
+``map_seed`` (default 0) picks the seeded house map (maps/house.py).
 ``tracking_theta`` / ``tracking_ess`` / ``tracking_win`` (win>0 only)
 forward to the staged runner's tracking-program knobs
 (tracking_theta_bins / tracking_ess_threshold / tracking_window_cells;
@@ -38,8 +37,9 @@ import time
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import jax
 
-jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
+from mcmh_localization.utils.compile_cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 import numpy as np
 
 
@@ -48,23 +48,23 @@ def main():
     duration = float(sys.argv[2]) if len(sys.argv) > 2 else 40.0
     seed = int(sys.argv[3]) if len(sys.argv) > 3 else 0
     win = int(sys.argv[4]) if len(sys.argv) > 4 else 0
-    map_name = sys.argv[5] if len(sys.argv) > 5 else "map_house"
+    map_seed = int(sys.argv[5]) if len(sys.argv) > 5 else 0
     tracking_theta = int(sys.argv[6]) if len(sys.argv) > 6 else 0
     tracking_ess = float(sys.argv[7]) if len(sys.argv) > 7 else 0.0
     tracking_win = int(sys.argv[8]) if len(sys.argv) > 8 else 0
 
-    from mcmh_localization_tpu.config import FilterConfig
-    from mcmh_localization_tpu.eval.runner import run_filter_on_bag
-    from mcmh_localization_tpu.maps import load_map
-    from mcmh_localization_tpu.sim.simulator import simulate_bag
-    from mcmh_localization_tpu.sim.trajectory import (
+    from mcmh_localization.config import FilterConfig
+    from mcmh_localization.eval.runner import run_filter_on_bag
+    from mcmh_localization.maps.house import make_house_map
+    from mcmh_localization.sim.simulator import simulate_bag
+    from mcmh_localization.sim.trajectory import (
         SCENARIOS,
         fit_trajectory_to_map,
     )
 
-    from mcmh_localization_tpu.sim.trajectory import square_trajectory
+    from mcmh_localization.sim.trajectory import square_trajectory
 
-    grid_map = load_map(f"/root/reference/app/maps/{map_name}.yaml")
+    grid_map = make_house_map(map_seed)
     # a LARGE square tour (4 m side, 0.3 m/s): the default 1.5 m square
     # placed in one corner room never breaks map_house's near-symmetry
     # under 5 m scans — the cluster estimate locks a wrong mode ~5 m off
@@ -74,7 +74,7 @@ def main():
     gt = fit_trajectory_to_map(grid_map, gt, min_clearance=0.18)
     bag = simulate_bag(
         jax.random.PRNGKey(seed), grid_map, gt, n_beams=360, max_range=5.0,
-        rate=5.0, range_noise=0.01, name=f"global_square_{map_name}",
+        rate=5.0, range_noise=0.01, name=f"global_square_house{map_seed}",
     )
 
     cfg = FilterConfig(
@@ -90,11 +90,11 @@ def main():
     t0 = time.perf_counter()
     modes = None
     if win:
-        from mcmh_localization_tpu.filter.staged import (
+        from mcmh_localization.filter.staged import (
             make_staged_model,
             run_staged,
         )
-        from mcmh_localization_tpu.sim.simulator import odometry_deltas
+        from mcmh_localization.sim.simulator import odometry_deltas
 
         staged = make_staged_model(
             cfg, grid_map,
@@ -134,7 +134,7 @@ def main():
         "total_wall_s": round(total, 2),
         "seed": seed,
         "win": win,
-        "map": map_name,
+        "map": f"house seed {map_seed}",
         "tracking_scans": int((modes == 1).sum()) if modes is not None else None,
     }), flush=True)
     print("err trace (every 5th):",

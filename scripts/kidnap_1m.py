@@ -25,8 +25,9 @@ import time
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import jax
 
-jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
+from mcmh_localization.utils.compile_cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 import numpy as np
 
 
@@ -34,23 +35,23 @@ def main():
     n = int(sys.argv[1]) if len(sys.argv) > 1 else 1_000_000
     seed = int(sys.argv[2]) if len(sys.argv) > 2 else 0
 
-    from mcmh_localization_tpu.config import FilterConfig
-    from mcmh_localization_tpu.filter.staged import (
+    from mcmh_localization.config import FilterConfig
+    from mcmh_localization.filter.staged import (
         make_staged_model,
         run_staged,
     )
-    from mcmh_localization_tpu.maps import load_map
-    from mcmh_localization_tpu.sim.simulator import (
+    from mcmh_localization.maps.house import make_house_map
+    from mcmh_localization.sim.simulator import (
         odometry_deltas,
         simulate_bag,
     )
-    from mcmh_localization_tpu.sim.trajectory import (
+    from mcmh_localization.sim.trajectory import (
         fit_trajectory_to_map,
         second_placement,
         square_trajectory,
     )
 
-    grid_map = load_map("/root/reference/app/maps/map_house.yaml")
+    grid_map = make_house_map()
     # 130 s square tour at 5 Hz = ~650 scans; teleport at scan 150 (30 s in).
     # Leg assignment matters on this near-symmetric house: tracking (leg A)
     # works in any room, but RE-localization needs distinguishing geometry

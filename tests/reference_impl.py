@@ -2,7 +2,20 @@
 (re-derived from the documented behavior in SURVEY.md §2.1; used only to
 validate the vectorized JAX kernels against a straightforward loop form)."""
 
+import os
+
 import numpy as np
+
+
+def reference_file(relpath):
+    """Path of ``relpath`` inside the reference project's checkout, named by
+    the MCMH_REFERENCE_REPO environment variable; None when that checkout
+    (or the file) is not available."""
+    root = os.environ.get("MCMH_REFERENCE_REPO")
+    if not root:
+        return None
+    path = os.path.join(root, relpath)
+    return path if os.path.exists(path) else None
 
 
 def ref_likelihood_field_scores(
@@ -38,6 +51,83 @@ def ref_likelihood_field_scores(
             acc += np.log(max(z_hit * ph + z_rand * pr, 1e-6))
         out[i] = acc / nvalid if nvalid > 0 else -50.0
     return out
+
+
+def ref_likelihood_field_scores_np(
+    particles, ranges, angles, distance_map, resolution, origin,
+    width, height, sigma_hit, z_hit, z_rand, max_range, step, chunk=4096,
+):
+    """Array form of ``ref_likelihood_field_scores`` in float64: the same
+    per-beam arithmetic (endpoint from ``th + angle``, toward-zero cell
+    truncation, p_hit cutoff), evaluated over particle chunks so 1e5+
+    particles stay practical.  Agrees with the loop form to float64
+    rounding (tests/test_sensor.py)."""
+    particles = np.asarray(particles, dtype=np.float64)
+    r = np.asarray(ranges, dtype=np.float64)[::step]
+    a = np.asarray(angles, dtype=np.float64)[::step]
+    valid = np.isfinite(r) & (r < max_range)
+    r, a = r[valid], a[valid]
+    nvalid = int(valid.sum())
+    out = np.full(particles.shape[0], -50.0)
+    if nvalid == 0:
+        return out
+    dm = np.asarray(distance_map, dtype=np.float64)
+    pr = 1.0 / max_range  # valid beams satisfy 0 <= r <= max_range
+    for s in range(0, particles.shape[0], chunk):
+        p = particles[s:s + chunk]
+        ang = p[:, 2:3] + a[None, :]
+        ex = p[:, 0:1] + r[None, :] * np.cos(ang)
+        ey = p[:, 1:2] + r[None, :] * np.sin(ang)
+        cx = np.trunc((ex - origin[0]) / resolution).astype(np.int64)
+        cy = np.trunc((ey - origin[1]) / resolution).astype(np.int64)
+        inside = (cx >= 0) & (cx < width) & (cy >= 0) & (cy < height)
+        d = dm[np.clip(cy, 0, height - 1), np.clip(cx, 0, width - 1)]
+        ph = np.where(
+            d <= max_range,
+            np.exp(-0.5 * d * d / sigma_hit**2)
+            / np.sqrt(2 * np.pi * sigma_hit**2),
+            0.0,
+        )
+        lp = np.log(np.maximum(z_hit * ph + z_rand * pr, 1e-6))
+        out[s:s + chunk] = np.where(inside, lp, 0.0).sum(axis=1) / nvalid
+    return out
+
+
+def ref_systematic_indices(weights, num_out, r):
+    """Systematic resampling in float64: slot m takes the first particle
+    whose normalized cumulative weight exceeds u_m = (m + r) / num_out
+    (the low-variance walk of parallel_utils.py:416-446)."""
+    c = np.cumsum(np.asarray(weights, dtype=np.float64))
+    c /= c[-1]
+    u = (np.arange(num_out) + r) / num_out
+    idx = np.searchsorted(c, u, side="right")
+    return np.clip(idx, 0, len(c) - 1)
+
+
+def ref_kld_stop_count(samples, bin_xy, bin_t, eps, z, max_samples,
+                       min_particles, rule="every_sample"):
+    """Python-set mirror of the KLD stopping walk on given jittered samples
+    (kld_sampling_amcl, parallel_utils.py:529-591).  ``rule="new_bin"``
+    reproduces the reference's quirk of checking the bound only on new-bin
+    samples (parallel_utils.py:556-591); the default checks every sample
+    (the shipped semantics)."""
+    bins = set()
+    count = 0
+    while count < max_samples:
+        p = samples[count]
+        b = (int(p[0] / bin_xy), int(p[1] / bin_xy), int(p[2] / bin_t))
+        new = b not in bins
+        if new:
+            bins.add(b)
+        k = len(bins)
+        if (new or rule == "every_sample") and k > 1 and count >= min_particles:
+            chi2 = (k - 1) * (
+                1 - 2 / (9 * (k - 1)) + np.sqrt(2 / (9 * (k - 1))) * z
+            ) ** 3
+            if count > chi2 / (2 * eps):
+                break
+        count += 1
+    return count
 
 
 def ref_motion_density(prev, curr, delta, alpha):

@@ -14,10 +14,10 @@ import jax
 import numpy as np
 import pytest
 
-from mcmh_localization_tpu.config import FilterConfig
-from mcmh_localization_tpu.eval.runner import run_filter_on_bag
-from mcmh_localization_tpu.sim.simulator import simulate_bag
-from mcmh_localization_tpu.sim.trajectory import SCENARIOS
+from mcmh_localization.config import FilterConfig
+from mcmh_localization.eval.runner import run_filter_on_bag
+from mcmh_localization.sim.simulator import simulate_bag
+from mcmh_localization.sim.trajectory import SCENARIOS
 
 from tests.reference_impl import ref_mcl_run
 

@@ -4,8 +4,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from mcmh_localization_tpu.config import FilterConfig
-from mcmh_localization_tpu.parallel.batched import make_batched_model
+from mcmh_localization.config import FilterConfig
+from mcmh_localization.parallel.batched import make_batched_model
 
 
 def test_batched_three_robots_track(house_map):
@@ -52,7 +52,7 @@ def test_batched_matches_individual(house_map):
     poses = _square_trajectory(4)
     scans, angles, deltas = _simulate(house_map, poses, max_range=5.0)
 
-    from mcmh_localization_tpu.filter.step import make_model
+    from mcmh_localization.filter.step import make_model
 
     base = make_model(cfg, house_map)
     keys = jax.random.split(jax.random.PRNGKey(7), 2)
@@ -80,15 +80,15 @@ def test_batched_matches_individual(house_map):
 
 def test_multimap_two_robots_two_maps(house_map, house_occupancy):
     """Two robots on two DIFFERENT maps in one batched filter."""
-    from mcmh_localization_tpu.maps.grid_map import build_grid_map
-    from mcmh_localization_tpu.parallel.batched import make_multimap_model
+    from mcmh_localization.maps.grid_map import build_grid_map
+    from mcmh_localization.parallel.batched import make_multimap_model
     from tests.test_filter import _simulate, _square_trajectory, _wrap
 
     # second map: the house with an extra wall -> genuinely different
     occ2 = house_occupancy.copy()
     occ2[100:160, 60] = 100
     map2 = build_grid_map(occ2, 0.05, (-4.8, -4.8), edt_impl="scipy")
-    from mcmh_localization_tpu.parallel.batched import stack_maps
+    from mcmh_localization.parallel.batched import stack_maps
 
     maps = stack_maps([house_map, map2])
 

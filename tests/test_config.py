@@ -1,8 +1,6 @@
-import os
-
 import pytest
 
-from mcmh_localization_tpu.config import FilterConfig, parse_mode
+from mcmh_localization.config import FilterConfig, parse_mode
 
 
 @pytest.mark.parametrize(
@@ -98,9 +96,11 @@ def test_from_yaml_tuple_fields(tmp_path):
 
 
 def test_from_reference_yaml_if_present():
-    path = "/root/reference/app/params/amhmcl.yaml"
-    if not os.path.exists(path):
-        pytest.skip("reference params not present")
+    from tests.reference_impl import reference_file
+
+    path = reference_file("app/params/amhmcl.yaml")
+    if path is None:
+        pytest.skip("reference params not present (set MCMH_REFERENCE_REPO)")
     c = FilterConfig.from_yaml(path)
     assert c.mode == "AMHAMCL"
     assert c.num_particles == 1500

@@ -9,11 +9,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from mcmh_localization_tpu.config import FilterConfig
-from mcmh_localization_tpu.filter.step import make_model
-from mcmh_localization_tpu.models.corr_field import correlation_field_scores
-from mcmh_localization_tpu.parallel.distributed import make_dist_model
-from mcmh_localization_tpu.parallel.sharding import make_mesh
+from mcmh_localization.config import FilterConfig
+from mcmh_localization.filter.step import make_model
+from mcmh_localization.models.corr_field import correlation_field_scores
+from mcmh_localization.parallel.distributed import make_dist_model
+from mcmh_localization.parallel.sharding import make_mesh
 
 try:
     from jax.experimental.shard_map import shard_map
@@ -30,7 +30,7 @@ def mesh():
 
 
 def _scan_at(house_map, pose, m=90):
-    from mcmh_localization_tpu.models.sensor import raycast
+    from mcmh_localization.models.sensor import raycast
 
     angles = jnp.linspace(-np.pi, np.pi, m)
     r = raycast(pose[:2], pose[2] + angles, house_map, 5.0, hit_unknown=True)
@@ -145,7 +145,7 @@ def test_dist_beam_field_matches_local(house_map, mesh):
     """Theta-sharded beam score-field build == the local build (the beam
     twin of test_theta_sharded_build_matches_local; round-2 verdict #6b:
     the framework's own beam field had no multi-chip story)."""
-    from mcmh_localization_tpu.models.range_table import (
+    from mcmh_localization.models.range_table import (
         beam_field_scores,
         make_beam_tables,
     )
@@ -213,7 +213,7 @@ def test_dist_island_mixing(house_map, mesh):
     7 of 8 islands start with ALL particles in the wrong room (globally
     near-zero weight); migration + local resampling must spread the good
     island's mass around the ring until every island localizes."""
-    from mcmh_localization_tpu.models.motion import compute_motion
+    from mcmh_localization.models.motion import compute_motion
 
     true_pose = jnp.array([1.0, -1.0, 0.0])
     bad_pose = (1.0, 2.4, 0.0)          # free cells in another room
@@ -268,12 +268,12 @@ def test_dist_lidar3d_tracks(mesh):
     replicated, lookups are shard-local).  Mirrors
     tests/test_lidar3d.py::test_lidar3d_filter_tracks on the 8-device
     mesh."""
-    from mcmh_localization_tpu.maps.voxel_map import (
+    from mcmh_localization.maps.voxel_map import (
         build_voxel_map,
         nav_slice,
     )
-    from mcmh_localization_tpu.models.sensor3d import simulate_scan3d
-    from mcmh_localization_tpu.sim.simulator import odometry_deltas
+    from mcmh_localization.models.sensor3d import simulate_scan3d
+    from mcmh_localization.sim.simulator import odometry_deltas
 
     d, h, w = 30, 100, 100
     occ = np.zeros((d, h, w), dtype=np.int8)
@@ -328,7 +328,7 @@ def test_dist_island_kld_vs_global_oracle(house_map, mesh):
     (>= the global bound's count / n_dev per island, i.e. never fewer
     particles than a global KLD would keep) and within a bounded factor
     of it (VERDICT r3 weak #5)."""
-    from mcmh_localization_tpu.ops.resampling import kld_resample
+    from mcmh_localization.ops.resampling import kld_resample
 
     rng = np.random.default_rng(9)
     n = 2048

@@ -6,8 +6,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from mcmh_localization_tpu.config import FilterConfig
-from mcmh_localization_tpu.filter.step import make_model
+from mcmh_localization.config import FilterConfig
+from mcmh_localization.filter.step import make_model
 
 
 def _track_cfg(thr, mode="MHMCL", n=600, **kw):
@@ -85,7 +85,7 @@ def test_gate_in_staged_tracking_survives_kidnap(house_map):
     drain it), which is why the gate composes with staging instead of
     being a flagship-wide default."""
     from tests.test_filter import _simulate
-    from mcmh_localization_tpu.filter.staged import (
+    from mcmh_localization.filter.staged import (
         make_staged_model,
         run_staged,
     )
@@ -134,7 +134,7 @@ def test_carry_matches_numpy_sir_oracle(house_map):
     tests/test_reference_oracle.py — this test isolates the carry/gate).
     Also asserts StepInfo.ess equals 1/sum(w^2) of the oracle weights."""
     from tests.test_filter import _simulate
-    from mcmh_localization_tpu.models.sensor import likelihood_field_scores
+    from mcmh_localization.models.sensor import likelihood_field_scores
 
     n = 600
     cfg = _track_cfg(0.2, mode="MCL", n=n, likelihood_impl="jnp")
@@ -148,7 +148,7 @@ def test_carry_matches_numpy_sir_oracle(house_map):
     poses = np.asarray(poses, dtype=np.float32)
     scans, angles, deltas = _simulate(house_map, poses, max_range=5.0)
 
-    from mcmh_localization_tpu.filter.step import make_model
+    from mcmh_localization.filter.step import make_model
 
     model = make_model(cfg, house_map)
     state = model.init(jax.random.PRNGKey(0))

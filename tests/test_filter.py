@@ -5,10 +5,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from mcmh_localization_tpu.config import FilterConfig, MODES
-from mcmh_localization_tpu.filter.step import make_model, state_size
-from mcmh_localization_tpu.models.motion import compute_motion
-from mcmh_localization_tpu.models.sensor import raycast
+from mcmh_localization.config import FilterConfig, MODES
+from mcmh_localization.filter.step import make_model, state_size
+from mcmh_localization.models.motion import compute_motion
+from mcmh_localization.models.sensor import raycast
 
 N_BEAMS = 90
 

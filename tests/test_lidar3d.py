@@ -7,13 +7,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from mcmh_localization_tpu.config import FilterConfig
-from mcmh_localization_tpu.maps.voxel_map import (
+from mcmh_localization.config import FilterConfig
+from mcmh_localization.maps.voxel_map import (
     build_voxel_map,
     nav_slice,
     raycast3d,
 )
-from mcmh_localization_tpu.models.sensor3d import (
+from mcmh_localization.models.sensor3d import (
     lidar3d_scores,
     simulate_scan3d,
 )
@@ -120,7 +120,7 @@ def test_lidar3d_scores_match_numpy_loop(room3d):
 def test_lidar3d_filter_tracks(room3d):
     """Full filter with the 3-D sensor: a 32-azimuth x 3-ring scanner
     localizes in the room (MCL, initialized tracking)."""
-    from mcmh_localization_tpu.filter.step import make_model
+    from mcmh_localization.filter.step import make_model
 
     nav = nav_slice(room3d, z=0.1)
     azimuths = np.linspace(-np.pi, np.pi, 32, endpoint=False)
@@ -158,7 +158,7 @@ def test_lidar3d_filter_tracks(room3d):
         ))
     scans = jnp.stack(scans)
 
-    from mcmh_localization_tpu.sim.simulator import odometry_deltas
+    from mcmh_localization.sim.simulator import odometry_deltas
 
     deltas = odometry_deltas(poses.astype(np.float32))
     state, infos = model.run(state, scans, directions, jnp.asarray(deltas))
@@ -168,7 +168,7 @@ def test_lidar3d_filter_tracks(room3d):
 
 
 def test_voxel_map_roundtrip(room3d, tmp_path):
-    from mcmh_localization_tpu.maps.voxel_map import (
+    from mcmh_localization.maps.voxel_map import (
         load_voxel_map, save_voxel_map,
     )
 

@@ -1,15 +1,13 @@
 """Tests for map loading, transforms, and the distance transform."""
 
-import os
-
 import jax.numpy as jnp
 import numpy as np
 import pytest
 from scipy.ndimage import distance_transform_edt
 
-from mcmh_localization_tpu.io.pgm import read_pgm, write_pgm, load_map_yaml
-from mcmh_localization_tpu.maps.edt import distance_transform_edt_device
-from mcmh_localization_tpu.maps.grid_map import build_grid_map, load_map
+from mcmh_localization.io.pgm import read_pgm, write_pgm, load_map_yaml
+from mcmh_localization.maps.edt import distance_transform_edt_device
+from mcmh_localization.maps.grid_map import build_grid_map, load_map
 
 
 def test_pgm_roundtrip(tmp_path):
@@ -121,9 +119,11 @@ def test_distance_positive_in_free_space(house_map):
 
 
 def test_load_reference_map_if_present():
-    path = "/root/reference/app/maps/map_house.yaml"
-    if not os.path.exists(path):
-        pytest.skip("reference maps not present")
+    from tests.reference_impl import reference_file
+
+    path = reference_file("app/maps/map_house.yaml")
+    if path is None:
+        pytest.skip("reference maps not present (set MCMH_REFERENCE_REPO)")
     m = load_map(path, edt_impl="scipy")
     assert m.width == 384 and m.height == 384
     assert float(m.resolution) == pytest.approx(0.05)
@@ -131,3 +131,37 @@ def test_load_reference_map_if_present():
     # reference map has substantial free space
     frees = int(jnp.sum(m.occupancy == 0))
     assert frees > 10000
+
+
+def test_house_map_shape_and_layout():
+    from mcmh_localization.maps.house import house_occupancy
+
+    occ = house_occupancy(0)
+    assert occ.shape == (384, 384) and occ.dtype == np.int8
+    assert set(np.unique(occ)) == {-1, 0, 100}
+    # unknown border around the footprint, walls on its edge
+    assert (occ[:30] == -1).all() and (occ[:, -30:] == -1).all()
+    assert 0.4 < (occ == 0).mean() < 0.7
+
+
+@pytest.mark.parametrize("seed", [0, 1, 7])
+def test_house_map_is_seeded(seed):
+    from mcmh_localization.maps.house import house_occupancy
+
+    np.testing.assert_array_equal(house_occupancy(seed),
+                                  house_occupancy(seed))
+    assert not np.array_equal(house_occupancy(seed),
+                              house_occupancy(seed + 1))
+
+
+@pytest.mark.parametrize("seed", [0, 3])
+def test_house_map_start_pose_is_clear(seed):
+    """World (0, 0) keeps >= 1.2 m of clearance on every seed."""
+    from mcmh_localization.maps.house import make_house_map
+
+    gm = make_house_map(seed, edt_impl="scipy")
+    mx, my = gm.world_to_grid(0.0, 0.0)
+    assert float(gm.distance[int(my), int(mx)]) >= 1.2
+    assert gm.width == gm.height == 384
+    assert float(gm.resolution) == pytest.approx(0.05)
+    np.testing.assert_allclose(np.asarray(gm.origin), [-10.0, -10.0])

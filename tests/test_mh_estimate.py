@@ -4,8 +4,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from mcmh_localization_tpu.filter.estimate import covariance_6x6, estimate_pose
-from mcmh_localization_tpu.filter.mh import asymmetric_mh, symmetric_mh
+from mcmh_localization.filter.estimate import covariance_6x6, estimate_pose
+from mcmh_localization.filter.mh import asymmetric_mh, symmetric_mh
 
 
 def _sets(n, rng):
@@ -129,7 +129,7 @@ def test_covariance_6x6_layout():
 
 
 def test_estimate_cluster_picks_heavy_mode():
-    from mcmh_localization_tpu.filter.estimate import estimate_pose_cluster
+    from mcmh_localization.filter.estimate import estimate_pose_cluster
 
     rng = np.random.default_rng(11)
     a = rng.normal([2.0, 1.0, 0.3], [0.05, 0.05, 0.02], size=(700, 3))

@@ -5,7 +5,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from mcmh_localization_tpu.models.motion import (
+from mcmh_localization.models.motion import (
     compute_motion,
     invert_delta,
     motion_density,

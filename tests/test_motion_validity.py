@@ -9,16 +9,16 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from mcmh_localization_tpu.config import FilterConfig
-from mcmh_localization_tpu.filter.step import make_model
-from mcmh_localization_tpu.models.corr_field import correlation_field_scores
-from mcmh_localization_tpu.models.sensor import INVALID_SCORE
+from mcmh_localization.config import FilterConfig
+from mcmh_localization.filter.step import make_model
+from mcmh_localization.models.corr_field import correlation_field_scores
+from mcmh_localization.models.sensor import INVALID_SCORE
 
 from tests.test_filter import _simulate, _square_trajectory, _wrap
 
 
 def _scan_at(grid_map, pose, m=90, max_range=5.0):
-    from mcmh_localization_tpu.models.sensor import raycast
+    from mcmh_localization.models.sensor import raycast
 
     angles = jnp.linspace(-np.pi, np.pi, m).astype(jnp.float32)
     ranges = raycast(pose[:2], pose[2] + angles, grid_map, max_range,

@@ -4,7 +4,7 @@ import numpy as np
 import pytest
 from scipy.ndimage import distance_transform_edt
 
-from mcmh_localization_tpu import native
+from mcmh_localization import native
 
 pytestmark = pytest.mark.skipif(
     not native.available(), reason="libmcmh_native.so not built"
@@ -41,7 +41,7 @@ def test_native_edt_all_obstacles():
 
 
 def test_build_grid_map_native_path(house_occupancy):
-    from mcmh_localization_tpu.maps.grid_map import build_grid_map
+    from mcmh_localization.maps.grid_map import build_grid_map
 
     m_native = build_grid_map(house_occupancy, 0.05, (-4.8, -4.8), edt_impl="native")
     m_scipy = build_grid_map(house_occupancy, 0.05, (-4.8, -4.8), edt_impl="scipy")

@@ -4,9 +4,9 @@ import jax
 import numpy as np
 import pytest
 
-from mcmh_localization_tpu.config import FilterConfig
-from mcmh_localization_tpu.filter.online import OnlineLocalizer
-from mcmh_localization_tpu.models.sensor import raycast
+from mcmh_localization.config import FilterConfig
+from mcmh_localization.filter.online import OnlineLocalizer
+from mcmh_localization.models.sensor import raycast
 import jax.numpy as jnp
 
 
@@ -92,7 +92,7 @@ def test_online_reanchor_stream(house_map):
     """The live map->odom re-anchoring loop (pose_broadcaster.py:22,88-105):
     every scan with an available odom->base emits one transform, and
     composing map->odom . odom->base reproduces the estimated pose."""
-    from mcmh_localization_tpu.viz import _pose_to_matrix
+    from mcmh_localization.viz import _pose_to_matrix
 
     cfg = FilterConfig(
         mode="MCL", num_particles=200, initialized=True,
@@ -137,7 +137,7 @@ def test_online_reanchor_stream(house_map):
 def test_reanchor_staleness():
     """stale_after rejects odom older than the estimate (the
     ExtrapolationException analogue)."""
-    from mcmh_localization_tpu.viz import TFReanchorer
+    from mcmh_localization.viz import TFReanchorer
 
     r = TFReanchorer(stale_after=0.5)
     r.on_odom(1.0, 0.0, 0.0, stamp=10.0)
@@ -162,7 +162,7 @@ def test_online_staged_tracks_and_shrinks(house_map):
     """OnlineLocalizer(staged=True): converged tracking hands off to the
     small windowed program per scan; recovery events (set_initial_pose)
     return to the big one."""
-    from mcmh_localization_tpu.models.sensor import raycast as _rc
+    from mcmh_localization.models.sensor import raycast as _rc
 
     cfg = FilterConfig(
         mode="AMHAMCL", num_particles=2000, min_particles=300,
@@ -200,7 +200,7 @@ def test_online_staged_checkpoint_resume(house_map, tmp_path):
     checkpoint's array capacity selects the compiled program on resume,
     and the resumed run continues bit-exactly (same scans -> same
     estimates, PRNG key included)."""
-    from mcmh_localization_tpu.models.sensor import raycast as _rc
+    from mcmh_localization.models.sensor import raycast as _rc
 
     cfg = FilterConfig(
         mode="AMHAMCL", num_particles=2000, min_particles=300,
@@ -245,7 +245,7 @@ def test_online_staged_checkpoint_resume(house_map, tmp_path):
     np.testing.assert_allclose(est_a["pose3"], est_b["pose3"], atol=1e-6)
 
     # capacity matching neither program is rejected
-    from mcmh_localization_tpu.utils.checkpoint import save_state
+    from mcmh_localization.utils.checkpoint import save_state
 
     bad = str(tmp_path / "bad.npz")
     save_state(bad, loc.state.replace(
@@ -260,8 +260,8 @@ def test_online_frame_recorder_hook(house_map, tmp_path):
     """frame_recorder= hook: every on_scan renders a live frame (the
     reference node's per-scan MarkerArray stream, amcmh_localizer.py
     :538-581, directly off the facade)."""
-    from mcmh_localization_tpu.models.sensor import raycast as _rc
-    from mcmh_localization_tpu.viz import FrameRecorder
+    from mcmh_localization.models.sensor import raycast as _rc
+    from mcmh_localization.viz import FrameRecorder
 
     cfg = FilterConfig(
         mode="MCL", num_particles=150, initialized=True,
@@ -287,8 +287,8 @@ def test_online_estimate_cached_and_packed(house_map):
     """estimate() returns the per-step cached dict (a second call per
     scan must not pay device fetches again) with the host-side flat
     covariance packing matching filter.estimate.covariance_6x6."""
-    from mcmh_localization_tpu.filter.estimate import covariance_6x6
-    from mcmh_localization_tpu.models.sensor import raycast as _rc
+    from mcmh_localization.filter.estimate import covariance_6x6
+    from mcmh_localization.models.sensor import raycast as _rc
 
     cfg = FilterConfig(
         mode="MCL", num_particles=200, initialized=True,
@@ -324,7 +324,7 @@ def test_online_warmup_no_mutation(house_map):
     outside its deadline window and the FIRST stage switch doesn't pay a
     cold compile (measured 17.6 s = 88 dropped 5 Hz periods on the chip,
     RESULTS.md "Real-time duty cycle")."""
-    from mcmh_localization_tpu.models.sensor import raycast as _rc
+    from mcmh_localization.models.sensor import raycast as _rc
 
     angles = jnp.linspace(-np.pi, np.pi, 90)
     scan = _rc(jnp.asarray([1.0, -1.0]), angles, house_map, 5.0,

@@ -4,7 +4,7 @@ Every other parity test in this suite compares against
 ``tests/reference_impl.py`` — a hand-written numpy re-derivation of
 ``parallel_utils.py``.  Round-4 verdict Missing-1: that chain is "a
 reimplementation of a reimplementation".  ``parallel_utils.py`` imports only
-numpy + numba (``/root/reference/app/scripts/parallel_utils.py:1-2``), so with
+numpy + numba (``app/scripts/parallel_utils.py:1-2``), so with
 ``numba.njit`` stubbed to identity (numba is not installed here) the file
 executes directly as the gold oracle.  These tests run the reference's actual
 code at small N and assert:
@@ -22,7 +22,9 @@ code at small N and assert:
   * odometry motion densities (``motion_model_odometry_parallel`` :282-330)
     match ``models/motion.py::motion_density``.
 
-The reference module is loaded fresh per test session; nothing is copied.
+The reference module is loaded fresh per test session from the reference
+project's checkout named by MCMH_REFERENCE_REPO; nothing is copied, and the
+tests skip when that checkout is not available.
 """
 
 import importlib.util
@@ -32,7 +34,7 @@ import types
 import numpy as np
 import pytest
 
-REF_PATH = "/root/reference/app/scripts/parallel_utils.py"
+from tests.reference_impl import reference_file
 
 
 @pytest.fixture(scope="module")
@@ -56,11 +58,15 @@ def ref():
     stub = types.ModuleType("numba")
     stub.njit = njit
     stub.prange = range
+    ref_path = reference_file("app/scripts/parallel_utils.py")
+    if ref_path is None:
+        pytest.skip("the reference's app/scripts/parallel_utils.py is not "
+                    "available (set MCMH_REFERENCE_REPO to its checkout)")
     saved = sys.modules.get("numba")
     sys.modules["numba"] = stub
     try:
         spec = importlib.util.spec_from_file_location("ref_parallel_utils",
-                                                      REF_PATH)
+                                                      ref_path)
         mod = importlib.util.module_from_spec(spec)
         spec.loader.exec_module(mod)
     finally:
@@ -90,8 +96,8 @@ def test_compute_likelihoods_gold(ref, house_map):
     """Reference compute_likelihoods == likelihood_field_scores, f32 tol."""
     import jax.numpy as jnp
 
-    from mcmh_localization_tpu.config import FilterConfig
-    from mcmh_localization_tpu.models.sensor import likelihood_field_scores
+    from mcmh_localization.config import FilterConfig
+    from mcmh_localization.models.sensor import likelihood_field_scores
 
     rng = np.random.default_rng(7)
     n, m = 256, 90
@@ -129,7 +135,7 @@ def test_mh_symmetric_accepts_gold(ref, monkeypatch):
     import jax.numpy as jnp
     import jax.random
 
-    from mcmh_localization_tpu.filter.mh import symmetric_mh
+    from mcmh_localization.filter.mh import symmetric_mh
 
     rng = np.random.default_rng(3)
     n = 512
@@ -168,7 +174,7 @@ def test_mh_asymmetric_accepts_gold(ref, monkeypatch):
     import jax.numpy as jnp
     import jax.random
 
-    from mcmh_localization_tpu.filter.mh import asymmetric_mh
+    from mcmh_localization.filter.mh import asymmetric_mh
 
     rng = np.random.default_rng(5)
     n = 512
@@ -210,7 +216,7 @@ def test_kld_stop_count_gold(ref, monkeypatch):
     """
     import jax.random
 
-    import mcmh_localization_tpu.ops.resampling as rs
+    import mcmh_localization.ops.resampling as rs
 
     rng = np.random.default_rng(11)
     max_samples = 4000
@@ -269,7 +275,7 @@ def test_motion_density_gold(ref, house_map):
     """motion_model_odometry_parallel == motion_density (normalized)."""
     import jax.numpy as jnp
 
-    from mcmh_localization_tpu.models.motion import motion_density
+    from mcmh_localization.models.motion import motion_density
 
     rng = np.random.default_rng(21)
     n = 512

@@ -5,7 +5,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from mcmh_localization_tpu.ops.resampling import (
+from mcmh_localization.ops.resampling import (
     KLD_NOISE_STD,
     _first_occurrence,
     _kld_chi2_bound,
@@ -15,6 +15,7 @@ from mcmh_localization_tpu.ops.resampling import (
     softmax_weights,
     systematic_resample_indices,
 )
+from tests.reference_impl import ref_kld_stop_count
 
 
 def test_softmax_weights_matches_reference_form():
@@ -100,29 +101,6 @@ def test_first_occurrence():
     assert out.tolist() == [True, True, False, True, False, True, True]
 
 
-def _golden_kld_count(samples, bin_xy, bin_t, eps, z, max_samples,
-                      min_particles, rule="every_sample"):
-    """Python-set mirror of the KLD stopping walk on given jittered samples.
-    ``rule="new_bin"`` reproduces the reference's quirk of checking the
-    bound only on new-bin samples (parallel_utils.py:556-591); the default
-    checks every sample (the shipped semantics)."""
-    bins = set()
-    count = 0
-    while count < max_samples:
-        p = samples[count]
-        b = (int(p[0] / bin_xy), int(p[1] / bin_xy), int(p[2] / bin_t))
-        new = b not in bins
-        if new:
-            bins.add(b)
-        k = len(bins)
-        if (new or rule == "every_sample") and k > 1 and count >= min_particles:
-            chi2 = (k - 1) * (1 - 2 / (9 * (k - 1)) + np.sqrt(2 / (9 * (k - 1))) * z) ** 3
-            if count > chi2 / (2 * eps):
-                break
-        count += 1
-    return count
-
-
 def test_kld_stopping_matches_golden():
     # a handful of clusters -> small occupied-bin count k -> the chi^2 bound
     # m > chi2(k)/(2 eps) trips at a data-dependent early stopping point
@@ -140,7 +118,7 @@ def test_kld_stopping_matches_golden():
                 bin_size_xy=0.5, bin_size_theta=0.3, epsilon=eps, z=2.0,
                 stop_rule=rule,
             )
-            golden = _golden_kld_count(
+            golden = ref_kld_stop_count(
                 np.asarray(samples), 0.5, 0.3, eps, 2.0, n, 20, rule=rule
             )
             assert int(n_kept) == golden, (rule, eps, int(n_kept), golden)
@@ -165,7 +143,7 @@ def test_kld_spread_runs_to_max():
         max_samples=n, min_particles=20,
         bin_size_xy=0.5, bin_size_theta=0.3, epsilon=0.05, z=2.0,
     )
-    golden = _golden_kld_count(np.asarray(samples), 0.5, 0.3, 0.05, 2.0, n, 20)
+    golden = ref_kld_stop_count(np.asarray(samples), 0.5, 0.3, 0.05, 2.0, n, 20)
     assert int(n_kept) == golden == n
 
 
@@ -230,7 +208,7 @@ def test_kld_jitter_scale():
 def test_scan_expansion_matches_gather():
     """impl="scan" (scatter values + associative fill-forward) must produce
     exactly particles[idx] from impl="gather" — same key, same bounds."""
-    from mcmh_localization_tpu.ops.resampling import (
+    from mcmh_localization.ops.resampling import (
         systematic_resample_particles,
     )
 
@@ -252,160 +230,12 @@ def test_scan_expansion_matches_gather():
             np.testing.assert_array_equal(
                 np.asarray(a)[:c], np.asarray(b)[:c])
 
-def test_mxu_take_matches_gather():
-    """take_rows_monotone (interpret) is bitwise equal to particles[idx]
-    for systematic-resampling index vectors, including count-truncated."""
-    from mcmh_localization_tpu.ops.resampling import (
-        systematic_resample_indices,
-    )
-    from mcmh_localization_tpu.ops.take_pallas import take_rows_monotone
-
-    rng = np.random.default_rng(12)
-    n = 8192
-    particles = jnp.asarray(rng.normal(size=(n, 3)).astype(np.float32))
-    w = jnp.asarray(rng.exponential(size=n).astype(np.float32))
-    w = w / jnp.sum(w)
-    key = jax.random.PRNGKey(9)
-    for count in (None, jnp.int32(3000)):
-        idx = systematic_resample_indices(key, w, n, count=count)
-        a = np.asarray(particles)[np.asarray(idx)]
-        b = take_rows_monotone(particles, idx, interpret=True)
-        np.testing.assert_array_equal(a, np.asarray(b))
-
-
-def test_mxu_take_span_fallback():
-    """Adversarial spans (indices jumping across the whole array) at
-    kernel-eligible sizes still produce the exact gather via the cond
-    fallback (exercised on CPU through the interpret-free path)."""
-    from mcmh_localization_tpu.ops.take_pallas import take_rows_monotone
-
-    rng = np.random.default_rng(13)
-    n = 40000
-    particles = jnp.asarray(rng.normal(size=(n, 3)).astype(np.float32))
-    # monotone but spanning the full range inside one tile
-    idx = jnp.asarray(
-        np.sort(np.concatenate([np.zeros(100, np.int32),
-                                np.full(n - 100, n - 1, np.int32)]))
-    )
-    out = take_rows_monotone(particles, idx)
-    np.testing.assert_array_equal(
-        np.asarray(out), np.asarray(particles)[np.asarray(idx)]
-    )
-
-def test_rank_kernel_matches_xla():
-    """rank_pallas interpret kernel == scatter+cummax on random, spiky,
-    and degenerate weight patterns (the resampling index path)."""
-    from mcmh_localization_tpu.ops.rank_pallas import rank_in_sorted
-    from mcmh_localization_tpu.ops.resampling import _segment_bounds
-
-    rng = np.random.default_rng(21)
-    key = jax.random.PRNGKey(3)
-    n = 16384
-    cases = {
-        "uniform": np.ones(n),
-        "exponential": rng.exponential(size=n),
-        "spiky": np.where(rng.random(n) < 0.001, 1000.0, 1e-6),
-        "leading-zeros": np.concatenate([np.zeros(n // 2), np.ones(n // 2)]),
-        "trailing-zeros": np.concatenate([np.ones(n // 2), np.zeros(n // 2)]),
-    }
-    for name, w in cases.items():
-        w = jnp.asarray((w / w.sum()).astype(np.float32))
-        bound = _segment_bounds(key, w, n, None)
-        a = rank_in_sorted(bound, n)              # CPU -> XLA path
-        b = rank_in_sorted(bound, n, interpret=True)
-        np.testing.assert_array_equal(np.asarray(a), np.asarray(b), err_msg=name)
-
-
-def test_rank_kernel_count_prefix():
-    """With a traced count, the kernel and XLA paths agree on [:count]."""
-    from mcmh_localization_tpu.ops.rank_pallas import rank_in_sorted
-    from mcmh_localization_tpu.ops.resampling import _segment_bounds
-
-    rng = np.random.default_rng(22)
-    key = jax.random.PRNGKey(5)
-    n = 16384
-    w = jnp.asarray(rng.exponential(size=n).astype(np.float32))
-    w = w / jnp.sum(w)
-    c = 5000
-    bound = _segment_bounds(key, w, n, jnp.int32(c))
-    a = rank_in_sorted(bound, n)
-    b = rank_in_sorted(bound, n, interpret=True)
-    np.testing.assert_array_equal(np.asarray(a)[:c], np.asarray(b)[:c])
-
-def test_fused_expand_matches_two_step():
-    """expand_sorted (fused rank+take kernel, interpret) is bitwise equal
-    to particles[rank_in_sorted(bound)] across weight patterns."""
-    from mcmh_localization_tpu.ops.rank_pallas import (
-        expand_sorted, rank_in_sorted,
-    )
-    from mcmh_localization_tpu.ops.resampling import _segment_bounds
-
-    rng = np.random.default_rng(41)
-    key = jax.random.PRNGKey(13)
-    n = 20_000  # non-divisible by the tile size
-    particles = jnp.asarray(rng.normal(size=(n, 3)).astype(np.float32))
-    for name, w in {
-        "exp": rng.exponential(size=n),
-        "spiky": np.where(rng.random(n) < 0.002, 500.0, 1e-6),
-        "leading-zeros": np.concatenate([np.zeros(n // 2), np.ones(n // 2)]),
-    }.items():
-        w = jnp.asarray((w / w.sum()).astype(np.float32))
-        bound = _segment_bounds(key, w, n, None)
-        want = np.asarray(particles)[np.asarray(rank_in_sorted(bound, n))]
-        got = expand_sorted(bound, particles, n, interpret=True)
-        np.testing.assert_array_equal(want, np.asarray(got), err_msg=name)
-
-def test_exact_onehot_dot_triple_bitwise():
-    """The documented-negative 'triple' bf16 decomposition of the take dot
-    must stay bitwise-equal to the HIGHEST-precision single dot (ADVICE r3:
-    the branch was dead code; exercise it so the exactness claim stays
-    verified).  Covers values spanning many exponents and a one-hot with
-    empty columns (row WROWS = no straddling chunk)."""
-    from mcmh_localization_tpu.ops.rank_pallas import WROWS, _exact_onehot_dot
-
-    rng = np.random.default_rng(7)
-    e = 256
-    vals = jnp.asarray(
-        (rng.normal(size=(WROWS, 128)) * 10.0 ** rng.integers(
-            -6, 6, size=(WROWS, 128))).astype(np.float32)
-    )
-    rows = rng.integers(0, WROWS + 1, size=e)  # WROWS = empty column
-    oh = jnp.asarray(
-        (rows[None, :] == np.arange(WROWS)[:, None]).astype(np.float32)
-    )
-    hi = np.asarray(_exact_onehot_dot(vals, oh, mode="highest"))
-    tr = np.asarray(_exact_onehot_dot(vals, oh, mode="triple"))
-    np.testing.assert_array_equal(hi, tr)
-
-
-def test_fused_expand_window_boundary_exact():
-    """A tile whose input span exactly equals the kernel window must route
-    to the XLA fallback, not silently produce (0,0,0) particles (review
-    repro: <= vs < in the fits guard)."""
-    from mcmh_localization_tpu.ops.rank_pallas import (
-        expand_sorted, rank_in_sorted,
-    )
-
-    n = 32768
-    # bound: 100 zeros, then 16284 fives, then 8192s -> one tile's inputs
-    # end exactly at the window boundary
-    bound = jnp.asarray(np.concatenate([
-        np.zeros(100, np.int32),
-        np.full(16284, 5, np.int32),
-        np.full(n - 100 - 16284, 8192, np.int32),
-    ]))
-    rng = np.random.default_rng(5)
-    particles = jnp.asarray(rng.normal(size=(n, 3)).astype(np.float32) + 1.0)
-    num_out = 8192
-    want = np.asarray(particles)[np.asarray(rank_in_sorted(bound, num_out))]
-    got = np.asarray(expand_sorted(bound, particles, num_out, interpret=True))
-    np.testing.assert_array_equal(want, got)
 
 def test_kld_eval_window_exact_when_stopped():
     """With the stop point inside the window, eval_window gives the exact
     full-evaluation n_kept; a window excluding the stop keeps everything
     (the documented one-sided deviation)."""
-    from mcmh_localization_tpu.ops.resampling import kld_resample
+    from mcmh_localization.ops.resampling import kld_resample
 
     rng = np.random.default_rng(3)
     key = jax.random.PRNGKey(7)
@@ -429,44 +259,13 @@ def test_kld_eval_window_exact_when_stopped():
     _, k_spread = kld_resample(key, spread, w, eval_window=256, **kw)
     assert int(k_spread) == n
 
-def test_fused_expand_count_tail():
-    """count < num_out leaves a long constant bound tail (every adaptive
-    KLD draw): the fused kernel must still take it (the tail tiles hit the
-    window-end equality case) and match the two-step path on [:count]."""
-    from mcmh_localization_tpu.ops.rank_pallas import (
-        expand_sorted, rank_in_sorted,
-    )
-    from mcmh_localization_tpu.ops.resampling import _segment_bounds
-
-    rng = np.random.default_rng(51)
-    key = jax.random.PRNGKey(23)
-    n = 65536
-    particles = jnp.asarray(rng.normal(size=(n, 3)).astype(np.float32))
-    # concentrated active set: first 6k particles carry all the weight
-    w = np.zeros(n, np.float32)
-    w[:6000] = rng.exponential(size=6000).astype(np.float32)
-    w = jnp.asarray(w / w.sum())
-    cnt = jnp.int32(6000)
-    bound = _segment_bounds(key, w, n, cnt)
-    # reference: XLA path, no count cap
-    want = np.asarray(particles)[np.asarray(rank_in_sorted(bound, n))]
-    # the COUNT-CAPPED kernel paths (cap_ref clamping + clamped probes)
-    got = np.asarray(
-        expand_sorted(bound, particles, n, interpret=True, count=cnt)
-    )
-    np.testing.assert_array_equal(want[:6000], got[:6000])
-    idx_k = np.asarray(rank_in_sorted(bound, n, interpret=True, count=cnt))
-    np.testing.assert_array_equal(
-        want[:6000], np.asarray(particles)[idx_k][:6000]
-    )
-
 
 def test_first_occurrence_hash_forced():
-    """The TPU-default spatial-hash first-occurrence path, forced on CPU:
+    """The explicit spatial-hash first-occurrence path:
     matches the exact sort path up to the birthday-bound ~k^2/2^19 slot
     collisions (the add+fmix hash must hit this bound; the original
     XOR-of-products hash merged 38% of bins here)."""
-    from mcmh_localization_tpu.ops.resampling import (
+    from mcmh_localization.ops.resampling import (
         _first_occurrence_hash,
         _first_occurrence_sort,
     )
@@ -492,7 +291,7 @@ def test_first_occurrence_hash_forced():
 def test_hash_debias_recovers_distinct_count():
     """The occupancy->distinct inversion recovers the true bin count
     within a few percent from tracking density up to table saturation."""
-    from mcmh_localization_tpu.ops.resampling import (
+    from mcmh_localization.ops.resampling import (
         _first_occurrence_hash,
         _first_occurrence_sort,
         _hash_debias,
@@ -516,7 +315,7 @@ def test_kld_escalation_exact():
     call actually realized (samples beyond n_kept are padding in the
     stage-1 branch; the golden walk never reaches them when it stops at
     the same point)."""
-    from mcmh_localization_tpu.ops import resampling as rs
+    from mcmh_localization.ops import resampling as rs
 
     key = jax.random.PRNGKey(7)
     n = 4096
@@ -533,7 +332,7 @@ def test_kld_escalation_exact():
             rng.normal(scale=[0.3, 0.3, 0.1], size=(n, 3)).astype(np.float32)
         )
         samples1, k1 = rs.kld_resample(key, clustered, w, **kw)
-        golden1 = _golden_kld_count(
+        golden1 = ref_kld_stop_count(
             np.asarray(samples1), 0.5, 0.3, 0.3, 2.0, n, 20
         )
         assert int(k1) == golden1, (int(k1), golden1)
@@ -549,7 +348,7 @@ def test_kld_escalation_exact():
         )
         kw2 = dict(kw, epsilon=0.05)
         samples2, k2 = rs.kld_resample(key, spread, w, **kw2)
-        golden2 = _golden_kld_count(
+        golden2 = ref_kld_stop_count(
             np.asarray(samples2), 0.5, 0.3, 0.05, 2.0, n, 20
         )
         assert int(k2) == golden2 == n

@@ -7,8 +7,8 @@ import struct
 import numpy as np
 import pytest
 
-from mcmh_localization_tpu.io import rosbag as rb
-from mcmh_localization_tpu.sim.simulator import Bag
+from mcmh_localization.io import rosbag as rb
+from mcmh_localization.sim.simulator import Bag
 
 
 @pytest.fixture()
@@ -85,9 +85,9 @@ def test_filter_runs_from_rosbag(tmp_path, house_map):
     """A recorded bag (here: simulated + written to .bag) drives the filter
     end to end — the reference's test_algs.launch replay path."""
     import jax
-    from mcmh_localization_tpu.config import FilterConfig
-    from mcmh_localization_tpu.filter.step import make_model
-    from mcmh_localization_tpu.sim.simulator import odometry_deltas
+    from mcmh_localization.config import FilterConfig
+    from mcmh_localization.filter.step import make_model
+    from mcmh_localization.sim.simulator import odometry_deltas
     from tests.test_filter import _simulate, _square_trajectory, _wrap
 
     poses = _square_trajectory(12)

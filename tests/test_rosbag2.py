@@ -10,8 +10,8 @@ import sqlite3
 import numpy as np
 import pytest
 
-from mcmh_localization_tpu.io import rosbag2 as rb2
-from mcmh_localization_tpu.sim.simulator import Bag
+from mcmh_localization.io import rosbag2 as rb2
+from mcmh_localization.sim.simulator import Bag
 
 
 @pytest.fixture()
@@ -123,9 +123,9 @@ def test_filter_runs_from_rosbag2(tmp_path, house_map):
     import jax
     import jax.numpy as jnp
 
-    from mcmh_localization_tpu.config import FilterConfig
-    from mcmh_localization_tpu.filter.step import make_model
-    from mcmh_localization_tpu.sim.simulator import odometry_deltas
+    from mcmh_localization.config import FilterConfig
+    from mcmh_localization.filter.step import make_model
+    from mcmh_localization.sim.simulator import odometry_deltas
     from tests.test_filter import _simulate, _square_trajectory, _wrap
 
     poses = _square_trajectory(12)

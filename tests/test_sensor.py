@@ -4,8 +4,8 @@ beam-model semantics."""
 import jax.numpy as jnp
 import numpy as np
 
-from mcmh_localization_tpu.config import FilterConfig
-from mcmh_localization_tpu.models.sensor import (
+from mcmh_localization.config import FilterConfig
+from mcmh_localization.models.sensor import (
     BLIND_SCORE,
     likelihood_field_scores,
     log_likelihood_field,
@@ -147,7 +147,7 @@ def test_beam_scores_prefer_true_pose(house_map):
 
 def test_beam_scores_blind():
     cfg = FilterConfig()
-    import mcmh_localization_tpu.maps.grid_map as gm
+    import mcmh_localization.maps.grid_map as gm
     import numpy as np_
 
     occ = np_.zeros((16, 16), dtype=np_.int8)

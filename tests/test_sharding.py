@@ -5,9 +5,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from mcmh_localization_tpu.config import FilterConfig
-from mcmh_localization_tpu.filter.step import make_model
-from mcmh_localization_tpu.parallel.sharding import (
+from mcmh_localization.config import FilterConfig
+from mcmh_localization.filter.step import make_model
+from mcmh_localization.parallel.sharding import (
     make_mesh,
     make_sharded_model,
     shard_state,

@@ -6,17 +6,17 @@ import jax
 import numpy as np
 import pytest
 
-from mcmh_localization_tpu.config import FilterConfig
-from mcmh_localization_tpu.eval.evaluator import (
+from mcmh_localization.config import FilterConfig
+from mcmh_localization.eval.evaluator import (
     evaluate_run,
     parse_poses_file,
     parse_results_file,
     save_results,
 )
-from mcmh_localization_tpu.eval.runner import run_filter_on_bag
-from mcmh_localization_tpu.sim.bag import load_bag, save_bag
-from mcmh_localization_tpu.sim.simulator import odometry_deltas, simulate_bag
-from mcmh_localization_tpu.sim.trajectory import SCENARIOS
+from mcmh_localization.eval.runner import run_filter_on_bag
+from mcmh_localization.sim.bag import load_bag, save_bag
+from mcmh_localization.sim.simulator import odometry_deltas, simulate_bag
+from mcmh_localization.sim.trajectory import SCENARIOS
 
 
 def test_trajectories_shapes_and_wrap():
@@ -35,7 +35,7 @@ def test_static_trajectory_is_static():
 def test_second_placement_kidnap_legs(house_map):
     """The kidnap-scenario constructor: leg B is a rigid translate of leg
     A, every pose free with clearance, anchored >= min_dist away."""
-    from mcmh_localization_tpu.sim.trajectory import (
+    from mcmh_localization.sim.trajectory import (
         fit_trajectory_to_map,
         second_placement,
     )
@@ -158,7 +158,7 @@ def test_plots_report(tmp_path):
             r = evaluate_run(times, est, gt)
             save_results(r, f"square_{algo}_run{run}", str(tmp_path))
             save_results(r, f"square_{algo}_{250 * (run + 1)}p_run0", str(tmp_path))
-    from mcmh_localization_tpu.eval.plots import (
+    from mcmh_localization.eval.plots import (
         collect_runs,
         collect_sweep,
         plot_rmse_report,
@@ -192,7 +192,7 @@ def test_drive_bag_command_stream(house_map):
     live-sim equivalent (mcmh_localization.launch:8-46): closed-loop
     controller moves the robot, walls stop translation, and the bag feeds
     the filter unchanged."""
-    from mcmh_localization_tpu.sim.simulator import drive_bag
+    from mcmh_localization.sim.simulator import drive_bag
 
     def ctrl(t, pose):
         return (0.25, 0.6 if (t % 3) < 1.0 else 0.0)
@@ -206,7 +206,7 @@ def test_drive_bag_command_stream(house_map):
     bag_wall = drive_bag(jax.random.PRNGKey(1), house_map, cmds,
                          start_pose=(1.0, -1.0, 0.0), n_beams=30)
     assert np.all(np.isfinite(bag_wall.gt))
-    from mcmh_localization_tpu.maps.grid_map import GridMap  # noqa: F401
+    from mcmh_localization.maps.grid_map import GridMap  # noqa: F401
     d = np.asarray(house_map.distance)
     res = float(house_map.resolution)
     for x, y, _ in bag_wall.gt:
@@ -228,7 +228,7 @@ def test_frame_recorder_live_view(house_map, small_bag, tmp_path):
     GIF assembly, via the runner's --save-frames path."""
     import argparse
 
-    from mcmh_localization_tpu.eval.runner import _run_with_frames
+    from mcmh_localization.eval.runner import _run_with_frames
 
     cfg = FilterConfig(mode="MCL", num_particles=200, initialized=True,
                        initial_pose=tuple(map(float, small_bag.gt[0])),
@@ -250,7 +250,7 @@ def test_frame_recorder_staged(house_map, small_bag, tmp_path):
     animation) and still produces frames + GIF."""
     import argparse
 
-    from mcmh_localization_tpu.eval.runner import _run_with_frames
+    from mcmh_localization.eval.runner import _run_with_frames
 
     cfg = FilterConfig(mode="AMHAMCL", num_particles=2048,
                        min_particles=100, max_particles=2048,
@@ -277,7 +277,7 @@ def test_runner_cli_single_staged(tmp_path, capsys):
     """`eval.runner single --staged` end-to-end through the argparse
     surface: the staged two-program path runs, reports the tracking-
     program share, and writes the reference-format results file."""
-    from mcmh_localization_tpu.eval.runner import main
+    from mcmh_localization.eval.runner import main
 
     res = main([
         "single", "--staged", "--initialized",
@@ -302,10 +302,10 @@ def test_runner_staged_dispatch(house_map, capsys):
 
     import jax
 
-    from mcmh_localization_tpu.config import FilterConfig
-    from mcmh_localization_tpu.eval.runner import _run_bag
-    from mcmh_localization_tpu.sim.simulator import simulate_bag
-    from mcmh_localization_tpu.sim.trajectory import (
+    from mcmh_localization.config import FilterConfig
+    from mcmh_localization.eval.runner import _run_bag
+    from mcmh_localization.sim.simulator import simulate_bag
+    from mcmh_localization.sim.trajectory import (
         SCENARIOS,
         fit_trajectory_to_map,
     )

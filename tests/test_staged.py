@@ -7,15 +7,15 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from mcmh_localization_tpu.config import FilterConfig
-from mcmh_localization_tpu.filter.staged import (
+from mcmh_localization.config import FilterConfig
+from mcmh_localization.filter.staged import (
     default_tracking_capacity,
     grow_state,
     make_staged_model,
     run_staged,
     shrink_state,
 )
-from mcmh_localization_tpu.filter.step import make_model
+from mcmh_localization.filter.step import make_model
 
 
 def _circle(t_steps, cx=1.3, cy=2.9, r=0.8):
@@ -44,7 +44,7 @@ def _cfg(**kw):
 
 def test_shrink_grow_roundtrip():
     cfg = _cfg(initial_pose=(2.5, 2.5, 0.0))
-    from mcmh_localization_tpu.filter.state import make_state
+    from mcmh_localization.filter.state import make_state
 
     rng = np.random.default_rng(0)
     parts = jnp.asarray(rng.normal(size=(500, 3)).astype(np.float32))
@@ -247,16 +247,16 @@ def _mesh8():
 def test_staged_dist_handoff_exact():
     """The per-shard shrink preserves every active particle (each island
     is locally prefix-packed) and grow zero-pads each shard's tail."""
-    from mcmh_localization_tpu.filter.staged import make_staged_dist_model
-    from mcmh_localization_tpu.filter.state import make_state
-    from mcmh_localization_tpu.parallel.distributed import shard_state
+    from mcmh_localization.filter.staged import make_staged_dist_model
+    from mcmh_localization.filter.state import make_state
+    from mcmh_localization.parallel.distributed import shard_state
 
     mesh = _mesh8()
     cfg = _cfg(initial_pose=(2.5, 2.5, 0.0), num_particles=2048,
                max_particles=2048, min_particles=256)
     occ = np.zeros((64, 64), np.int8)
     occ[0, :] = occ[-1, :] = occ[:, 0] = occ[:, -1] = 100
-    from mcmh_localization_tpu.maps.grid_map import build_grid_map
+    from mcmh_localization.maps.grid_map import build_grid_map
 
     gm = build_grid_map(occ, resolution=0.1, origin=(0.0, 0.0),
                         edt_impl="scipy")
@@ -287,7 +287,7 @@ def test_staged_dist_kidnap_cycle(house_map):
     shard_map models over the 8-device mesh; the runner shrinks after
     convergence, escalates on the kidnap, and re-localizes."""
     from tests.test_filter import _simulate
-    from mcmh_localization_tpu.filter.staged import make_staged_dist_model
+    from mcmh_localization.filter.staged import make_staged_dist_model
 
     mesh = _mesh8()
     # island resampling concentrates globally only through ring

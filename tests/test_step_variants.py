@@ -3,8 +3,8 @@
 import jax
 import numpy as np
 
-from mcmh_localization_tpu.config import FilterConfig
-from mcmh_localization_tpu.filter.step import make_model
+from mcmh_localization.config import FilterConfig
+from mcmh_localization.filter.step import make_model
 
 
 def _inputs(house_map, t=6, beams=60):
@@ -31,25 +31,6 @@ def test_beam_sensor_model_tracks(house_map):
 
     true = _wrap(_square_trajectory(6)[-1])
     assert np.hypot(est[0] - true[0], est[1] - true[1]) < 0.4
-
-
-def test_pallas_impl_step_matches_jnp(house_map):
-    scans, angles, deltas = _inputs(house_map)
-    base = dict(
-        mode="MHMCL", num_particles=128, initialized=True,
-        initial_pose=(1.0, -1.0, np.pi / 2), max_range=5.0,
-    )
-    m_jnp = make_model(FilterConfig(**base, likelihood_impl="jnp"), house_map)
-    m_pl = make_model(FilterConfig(**base, likelihood_impl="pallas"), house_map)
-    s_j = m_jnp.init(jax.random.PRNGKey(1))
-    s_p = m_pl.init(jax.random.PRNGKey(1))
-    for t in range(scans.shape[0]):
-        s_j, i_j = m_jnp.step(s_j, scans[t], angles, deltas[t])
-        s_p, i_p = m_pl.step(s_p, scans[t], angles, deltas[t])
-    np.testing.assert_allclose(
-        np.asarray(i_j.estimate.mean), np.asarray(i_p.estimate.mean),
-        rtol=1e-3, atol=1e-3,
-    )
 
 
 def test_adaptive_resampler_variants(house_map):

@@ -6,12 +6,12 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from mcmh_localization_tpu.config import FilterConfig
-from mcmh_localization_tpu.filter.step import make_model
-from mcmh_localization_tpu.utils.checkpoint import load_state, save_state
-from mcmh_localization_tpu.utils.metrics import MetricsLogger, read_metrics, summarize
-from mcmh_localization_tpu.utils.profiling import PhaseTimer
-from mcmh_localization_tpu.viz import (
+from mcmh_localization.config import FilterConfig
+from mcmh_localization.filter.step import make_model
+from mcmh_localization.utils.checkpoint import load_state, save_state
+from mcmh_localization.utils.metrics import MetricsLogger, read_metrics, summarize
+from mcmh_localization.utils.profiling import PhaseTimer
+from mcmh_localization.viz import (
     latched_initial_pose,
     map_to_odom_transform,
     particle_markers,

@@ -8,9 +8,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from mcmh_localization_tpu.config import FilterConfig
-from mcmh_localization_tpu.filter.state import make_state
-from mcmh_localization_tpu.filter.step import (
+from mcmh_localization.config import FilterConfig
+from mcmh_localization.filter.state import make_state
+from mcmh_localization.filter.step import (
     _window_origin,
     advance_anchor,
     make_model,
@@ -176,8 +176,8 @@ def test_anchor_hysteresis_commits_between_symmetric_modes():
     2x dominance."""
     import jax.numpy as jnp
 
-    from mcmh_localization_tpu.config import FilterConfig
-    from mcmh_localization_tpu.filter.step import refresh_anchor
+    from mcmh_localization.config import FilterConfig
+    from mcmh_localization.filter.step import refresh_anchor
 
     n = 400
     rng = np.random.default_rng(0)
@@ -230,8 +230,8 @@ def test_estimate_mode_anchor_tracks(house_map):
     anchor == argmax mode)."""
     import jax
 
-    from mcmh_localization_tpu.config import FilterConfig
-    from mcmh_localization_tpu.filter.step import make_model
+    from mcmh_localization.config import FilterConfig
+    from mcmh_localization.filter.step import make_model
     from tests.test_filter import _simulate
 
     poses = [np.array([1.0, -1.0, 0.0])]
@@ -264,8 +264,8 @@ def test_anchor_score_margin_vetoes_mass_dominant_decoy():
     kidnap) and migration fires immediately."""
     import jax.numpy as jnp
 
-    from mcmh_localization_tpu.config import FilterConfig
-    from mcmh_localization_tpu.filter.step import refresh_anchor
+    from mcmh_localization.config import FilterConfig
+    from mcmh_localization.filter.step import refresh_anchor
 
     n = 1000
     rng = np.random.default_rng(1)
